@@ -1,11 +1,1 @@
-"""TPU-native MyoSuite."""
-import os
-
-# Headless offscreen rendering: MuJoCo picks its GL backend at import time,
-# and the engine imports mujoco (as the MJCF compiler) long before any
-# render call. Default to EGL unless the user chose a backend or has a
-# display for the interactive glfw viewer.
-if "MUJOCO_GL" not in os.environ and "DISPLAY" not in os.environ:
-  os.environ["MUJOCO_GL"] = "egl"
-
-del os
+"""MyoSuite in JAX: muscle-tendon physics, batched task envs, on-device learners."""

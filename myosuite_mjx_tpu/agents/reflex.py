@@ -1,6 +1,6 @@
 """Reflex-based walking controller for the 80-muscle myoLeg.
 
-TPU-native port of the reference's physiological locomotion baseline
+Pure-JAX port of the reference's physiological locomotion baseline
 (/root/reference/myosuite/agents/baseline_Reflex/reflexCtr.py:1-629 — the
 Song & Geyer 2015 spinal-feedback circuitry — and its myoLeg wiring,
 ReflexCtrInterface.py:21-649). The reference is a stateful Python object
@@ -23,7 +23,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from myosuite_mjx_tpu.engine import data as data_mod
 from myosuite_mjx_tpu.engine import forward as forward_mod
@@ -31,6 +30,7 @@ from myosuite_mjx_tpu.engine import model as model_mod
 from myosuite_mjx_tpu.engine import sensors
 from myosuite_mjx_tpu.ops import quat as quat_ops
 from myosuite_mjx_tpu.envs.registry import asset
+from myosuite_mjx_tpu.utils import pytree
 
 D2R = np.pi / 180.0
 
@@ -130,7 +130,7 @@ def expand_params(params) -> jax.Array:
   return p[src] * scale + off
 
 
-@struct.dataclass
+@pytree.dataclass
 class ReflexState:
   """Per-leg phase flags, row 0 = right leg, row 1 = left leg."""
   in_contact: jax.Array    # (2,) bool
@@ -440,9 +440,9 @@ class ReflexWalker:
     """One control tick: sense -> stim -> 5 physics substeps.
 
     Matmul precision is pinned to f32 like MyoEnv.step: this path calls
-    the engine directly, and on TPU the default bf16 pass precision blows
-    up the leg's implicit-damping/Newton solves within a few ticks
-    (observed: qvel > 100 rad/s by tick 2, every CEM rollout dead)."""
+    the engine directly, and reduced-precision matmuls (TF32, the GPU's
+    f32 default) are too coarse for the leg's implicit-damping/Newton
+    solves."""
     with jax.default_matmul_precision("highest"):
       sens = self._sensor_data(d)
       state, stim = reflex_update(cp, state, sens)

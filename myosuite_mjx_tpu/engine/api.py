@@ -1,7 +1,7 @@
 """Public engine API: per-model compiled physics handles.
 
 ``Physics`` closes jitted step/forward functions over an immutable Model, so
-model constants fold into the XLA program — the TPU-native replacement for
+model constants fold into the XLA program — the batched replacement for
 the reference's SimScene handle (/root/reference/myosuite/physics/
 sim_scene.py:38-209). Batched simulation is ``vmap`` over Data.
 """
@@ -31,8 +31,8 @@ class Physics:
     self.dtype = dtype
 
     def _prec(fn):
-      # float32 physics needs true-f32 matmuls; the TPU default would route
-      # geometry products through bf16 and NaN the wrap/cholesky math.
+      # float32 physics needs true-f32 matmuls; the GPU default (TF32)
+      # keeps ~3 decimal digits, too few for the wrap/cholesky math.
       def wrapped(*args, **kw):
         with jax.default_matmul_precision("highest"):
           return fn(*args, **kw)

@@ -1,6 +1,6 @@
 """Collision detection: static pair enumeration + primitive narrowphase.
 
-TPU-native shape discipline: the candidate pair list is computed once from
+Shape discipline: the candidate pair list is computed once from
 static model structure (contype/conaffinity masks, weld/parent filtering,
 excludes, explicit <pair> entries — the same filter semantics the reference
 engine applies), and every candidate contributes fixed-size contact slots.
@@ -1411,9 +1411,8 @@ def contacts(m: Model, d: Data, max_contacts: int | None = None):
 
   # one gather for all per-env fields (dist/pos/n packed [C, 7]) and one
   # for the static per-slot tables (friction/solref/solimp/invweights/
-  # margin packed [C, 15]) instead of ~10 separate gathers — dynamic
-  # gathers with top-k indices were the single biggest narrowphase cost
-  # on TPU (judge-measured: ~40% of collision time was this block)
+  # margin packed [C, 15]) instead of ~10 separate gathers with the same
+  # top-k indices
   dyn_k = jnp.concatenate([dist[:, None], pos, n], axis=1)[idx]  # [k, 7]
   dist_k = dyn_k[:, 0]
   pos_k = dyn_k[:, 1:4]

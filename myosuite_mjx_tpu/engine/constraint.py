@@ -8,7 +8,7 @@ fixed points match the reference engine's).
 
 All limit rows are materialized statically (vectorized over the model's
 limited joints/tendons) and masked by activity; contacts arrive pre-culled
-from engine.collision. Shapes are static per model — the TPU-native
+from engine.collision. Shapes are static per model — the batched
 replacement for MuJoCo's dynamically-sized efc arrays.
 """
 from __future__ import annotations

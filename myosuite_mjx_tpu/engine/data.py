@@ -1,7 +1,7 @@
 """Dynamic simulation state: the ``Data`` pytree.
 
 One ``Data`` holds a single environment's state; batching is ``jax.vmap`` over
-a stacked Data (the TPU-native replacement for the reference's per-process
+a stacked Data (the batched replacement for the reference's per-process
 MjData, /root/reference/myosuite/physics/sim_scene.py:145-165). All leaves are
 jnp arrays so Data is jit/vmap/shard_map-transparent.
 
@@ -14,12 +14,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from myosuite_mjx_tpu.engine.model import Model
+from myosuite_mjx_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class Contact:
   """Fixed-size contact set (padded; ``dist > 0`` entries are inactive)."""
   dist: jax.Array        # (ncon,)
@@ -33,7 +33,7 @@ class Contact:
   includemargin: jax.Array  # (ncon,)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Data:
   # ---- state ----
   time: jax.Array        # ()

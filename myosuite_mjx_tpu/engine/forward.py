@@ -1,6 +1,6 @@
 """Forward dynamics pipeline and integration.
 
-Pure functions ``forward(m, d) -> d`` and ``step(m, d) -> d`` (the TPU
+Pure functions ``forward(m, d) -> d`` and ``step(m, d) -> d`` (the batched
 equivalent of the reference's `sim.forward()` / `sim.advance()` surface,
 /root/reference/myosuite/physics/sim_scene.py:167-208). The pipeline mirrors
 MuJoCo's stage order — position, velocity, actuation, acceleration,
@@ -298,11 +298,10 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
     qfrc_applied = qfrc_applied + (lin_rows + rot_rows).sum(axis=0)
   qfrc_smooth = (d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
                  + qfrc_applied)
-  # solve against qM directly (not the qLD factor): linalg.spd_solve's
-  # batched-vmap rule collapses the whole solve into one lane-packed
-  # pallas kernel on TPU, and with qLD then unconsumed inside the substep
-  # scan XLA dead-code-eliminates the separate factor entirely (qLD is
-  # still materialized for the last substep's Data, mjData parity)
+  # solve against qM directly (not the qLD factor): with qLD then
+  # unconsumed inside the substep scan XLA dead-code-eliminates the
+  # separate factor entirely (qLD is still materialized for the last
+  # substep's Data, mjData parity)
   from myosuite_mjx_tpu.ops import linalg
   qacc_smooth = linalg.spd_solve(d.qM, qfrc_smooth)
   return d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)
@@ -402,8 +401,7 @@ def euler(m: Model, d: Data) -> Data:
   else:
     damping = None
   if damping is not None:
-    # M + h*D is SPD: unrolled Cholesky solve (ops/linalg; XLA's batched
-    # factor/solve loops are ~10x slower at nv ~23)
+    # M + h*D is SPD: Cholesky solve (ops/linalg)
     from myosuite_mjx_tpu.ops import linalg
     mhb = d.qM + dt * jnp.diag(damping)
     qacc = linalg.spd_solve(mhb, qfrc)

@@ -5,6 +5,8 @@ package (exactly as the reference does before shipping models to XLA,
 /root/reference/myosuite/mjx/play.py:8-11) and then lift the compiled constants
 into our own flat representation. Everything downstream — forward dynamics,
 muscle-tendon actuation, contacts — is implemented in this repo in pure JAX.
+``mujoco`` is imported only by the functions that compile MJCF: a Model
+saved with ``save_model`` loads from its ``.npz`` with numpy alone.
 
 ``Model`` is a plain frozen dataclass of host numpy arrays. Jitted step
 functions close over it, so model constants fold into the XLA program (zero
@@ -16,10 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import json
 import os
 from typing import Any
 
-import mujoco
 import numpy as np
 
 
@@ -360,10 +362,11 @@ def derived_cache(m, name: str, builder):
   return d[key]
 
 
-def _mesh_hulls(mj: mujoco.MjModel, dtype) -> tuple[dict, dict]:
+def _mesh_hulls(mj: "mujoco.MjModel", dtype) -> tuple[dict, dict]:
   """Convex hull triangles + vertices for every mesh used by a collidable
   geom. MuJoCo itself collides the convex hull of a mesh; we precompute the
   hull with scipy at convert time (host-side)."""
+  import mujoco
   tris: dict[int, np.ndarray] = {}
   verts: dict[int, np.ndarray] = {}
   needed = set()
@@ -392,7 +395,8 @@ def _mesh_hulls(mj: mujoco.MjModel, dtype) -> tuple[dict, dict]:
   return tris, verts
 
 
-def _name_map(mj: mujoco.MjModel) -> dict[str, dict[str, int]]:
+def _name_map(mj: "mujoco.MjModel") -> dict[str, dict[str, int]]:
+  import mujoco
   kinds = {
       "body": mujoco.mjtObj.mjOBJ_BODY,
       "joint": mujoco.mjtObj.mjOBJ_JOINT,
@@ -420,7 +424,7 @@ def _name_map(mj: mujoco.MjModel) -> dict[str, dict[str, int]]:
   return out
 
 
-def from_mj(mj: mujoco.MjModel, dtype=np.float64) -> Model:
+def from_mj(mj: "mujoco.MjModel", dtype=np.float64) -> Model:
   """Convert a compiled MjModel into our flat Model (host numpy)."""
   f = lambda a: np.asarray(a, dtype=dtype).copy()
   i = lambda a: np.asarray(a, dtype=np.int32).copy()
@@ -583,10 +587,55 @@ def from_mj(mj: mujoco.MjModel, dtype=np.float64) -> Model:
 
 _model_cache: dict[tuple, Model] = {}
 
+_HEADER = "__header__"
+
+
+def save_model(m: Model, path: str) -> None:
+  """Write ``m`` as one ``.npz``: every array field under its name, mesh
+  hulls as ``<field>/<mesh id>``, and the sizes, ``opt`` and ``names`` as
+  a JSON header. ``load_model(path)`` reads it back without ``mujoco``."""
+  arrays, header = {}, {}
+  for f in dataclasses.fields(m):
+    v = getattr(m, f.name)
+    if isinstance(v, np.ndarray):
+      arrays[f.name] = v
+    elif f.name in ("mesh_hull_tris", "mesh_hull_verts"):
+      header[f.name] = sorted(int(k) for k in v)
+      arrays.update({f"{f.name}/{k}": a for k, a in v.items()})
+    elif isinstance(v, Option):
+      header[f.name] = {k: (x.tolist() if isinstance(x, np.ndarray) else x)
+                        for k, x in dataclasses.asdict(v).items()}
+    else:
+      header[f.name] = v
+  arrays[_HEADER] = np.asarray(json.dumps(header))
+  np.savez_compressed(path, **arrays)
+
+
+def _load_npz(path: str, dtype) -> Model:
+  def cast(a):
+    return a.astype(dtype) if np.issubdtype(a.dtype, np.floating) else a
+
+  with np.load(path, allow_pickle=False) as z:
+    header = json.loads(str(z[_HEADER]))
+    kw = {}
+    for f in dataclasses.fields(Model):
+      if f.name == "opt":
+        o = dict(header["opt"])
+        o["gravity"] = np.asarray(o["gravity"], dtype)
+        kw["opt"] = Option(**o)
+      elif f.name in ("mesh_hull_tris", "mesh_hull_verts"):
+        kw[f.name] = {k: cast(z[f"{f.name}/{k}"]) for k in header[f.name]}
+      elif f.name in header:
+        kw[f.name] = header[f.name]
+      else:
+        kw[f.name] = cast(z[f.name])
+  return Model(**kw)
+
 
 def load_model(path_or_xml: str, dtype=np.float64,
                assets: dict[str, Any] | None = None) -> Model:
-  """Compile an MJCF file or XML string and convert it.
+  """Load a Model from a ``save_model`` ``.npz``, or compile an MJCF file
+  or XML string and convert it.
 
   Results are cached per (source, dtype): Model is an immutable frozen
   dataclass of host numpy constants, so sharing across env instances is
@@ -605,14 +654,18 @@ def load_model(path_or_xml: str, dtype=np.float64,
     akey = None
   key = (path_or_xml, np.dtype(dtype).name, akey)
   if key not in _model_cache:
-    mj = load_mj_model(path_or_xml, assets)
-    _model_cache[key] = from_mj(mj, dtype=dtype)
+    if path_or_xml.endswith(".npz"):
+      _model_cache[key] = _load_npz(path_or_xml, dtype)
+    else:
+      mj = load_mj_model(path_or_xml, assets)
+      _model_cache[key] = from_mj(mj, dtype=dtype)
   return _model_cache[key]
 
 
 def load_mj_model(path_or_xml: str,
-                  assets: dict[str, Any] | None = None) -> mujoco.MjModel:
+                  assets: dict[str, Any] | None = None) -> "mujoco.MjModel":
   """Compile MJCF with the host MuJoCo compiler (also the parity oracle)."""
+  import mujoco
   if os.path.exists(path_or_xml):
     return mujoco.MjModel.from_xml_path(path_or_xml)
   return mujoco.MjModel.from_xml_string(path_or_xml, assets or {})

@@ -2,7 +2,7 @@
 
 Replaces the MuJoCo C smooth-dynamics stage the reference consumes through
 dm_control (/root/reference/myosuite/physics/mj_sim_scene.py:51-65). Design is
-TPU-first rather than a translation:
+batch-first rather than a translation:
 
 * The kinematic tree is **statically unrolled** at trace time (nbody is tiny,
   <= ~30 for myoHand): every tree gather becomes a static index, so XLA sees
@@ -10,7 +10,7 @@ TPU-first rather than a translation:
   parallel axis.
 * Spatial algebra uses 6D motion/force vectors in a **world-origin frame**
   ([angular; linear-at-origin]) — one global frame for the whole tree keeps
-  every pairwise product a plain dense op (MXU-friendly), vs MuJoCo's
+  every pairwise product a plain dense op, vs MuJoCo's
   per-tree com-centered frames.
 * The mass matrix is built densely: M = mask * (F @ cdof^T) with
   F_i = I_subtree(body(i)) @ cdof_i — a single [nv,6]x[6,nv] contraction.
@@ -52,9 +52,9 @@ def spatial_inertia(mass: jax.Array, inertia_diag: jax.Array,
   layout idea): (Ixx, Iyy, Izz, Ixy, Ixz, Iyz, hx, hy, hz, m) where
   h = m * com and I = R D R^T + m (|c|^2 E - c c^T).
 
-  Deliberately elementwise — the earlier 6x6 form built from 3x3 matmuls
-  forced padded TPU tilings ([..., 3, 3] dot_generals pad 3 -> 128 lanes)
-  plus layout-conversion copies that dominated the kinematics stage.
+  Deliberately elementwise: a 6x6 form built from [..., 3, 3] matmuls
+  turns into many tiny padded dot_generals plus layout-conversion copies,
+  where elementwise products fuse.
 
   mass: [...], inertia_diag: [..., 3], com: [..., 3], imat: [..., 3, 3].
   """
@@ -247,7 +247,7 @@ def kinematics(m: Model, qpos: jax.Array, mocap_pos: jax.Array,
 
   # inertial frames / sites / geoms — all composed in quaternion space
   # (quat_mul + quat_rotate + quat_to_mat are elementwise; [..., 3, 3]
-  # matmuls force padded TPU tilings and layout-conversion copies)
+  # matmuls become tiny padded dot_generals and layout copies)
   ipos = jnp.asarray(m.body_ipos, dtype)
   iquat = jnp.asarray(m.body_iquat, dtype)
   xipos = xpos + qmath.quat_rotate(xquat, ipos)

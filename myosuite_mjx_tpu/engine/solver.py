@@ -8,7 +8,7 @@ Minimizes MuJoCo's convex primal objective over accelerations
 where inequality rows are active only while accelerating into the
 constraint (jar < 0). Matches the reference's solver configuration space
 (mjSOL_NEWTON, iterations, ls_iterations —
-/root/reference/myosuite/mjx/myodm_v0.py:38-41) with TPU-friendly structure:
+the reference's myosuite/mjx/myodm_v0.py:38-41) with batch-friendly structure:
 fixed-shape dense rows, batch-uniform control flow.
 
 Speed-of-light choices (all batch-uniform under vmap):
@@ -26,7 +26,7 @@ Speed-of-light choices (all batch-uniform under vmap):
   16-expand + 25-bisect schedule.
 
 The Hessian M + J' diag(w) J is dense [nv, nv] (nv <= ~40 for Myo models)
-— batched Cholesky factorizations map well onto the MXU under vmap.
+— batched Cholesky factorizations are one XLA op under vmap.
 """
 from __future__ import annotations
 
@@ -156,7 +156,7 @@ def _newton_solve(m: Model, d: Data, J, aref, D, is_eq,
   # per-env update masks make extra iterations past convergence no-ops, so
   # block-unrolling only changes how often the batch-wide exit test runs.
   # Warmstarted batched solves at the bench state converge in <= 4
-  # iterations with the tail at 8 (TPU-measured, all 4096 lanes), so a
+  # iterations with the tail at 8 (all 4096 envs), so a
   # block of 2 usually stops half the work a block of 4 would burn.
   _BLOCK = 2
 

@@ -443,8 +443,8 @@ def tendon(m: Model, kin: dict, cdof: jax.Array):
     ln = jnp.linalg.norm(d, axis=-1)
     u = d / jnp.maximum(ln, _EPS)[:, None]
     # segment -> tendon accumulation as a static selection matmul instead
-    # of a scatter-add: TPU scatters serialize, a [ntendon, S] dense dot
-    # rides the MXU. sel folds 1/div; the signed variant folds the
+    # of a scatter-add (scatters serialize, a [ntendon, S] dense dot is
+    # one matmul). sel folds 1/div; the signed variant folds the
     # end-minus-start difference so BOTH jacobian endpoint contributions
     # come from ONE fused point_jac_dir call over the 2S stacked points.
     sel = np.zeros((m.ntendon, S))

@@ -1,6 +1,6 @@
 """Batched env core: pure-function MyoSuite environments.
 
-TPU-native redesign of the reference's gym stack (MujocoEnv + BaseV0,
+Batched redesign of the reference's gym stack (MujocoEnv + BaseV0,
 /root/reference/myosuite/envs/env_base.py:31, envs/myo/base_v0.py:15): the
 mutable dual-sim/Robot object graph becomes an immutable task object with two
 pure functions
@@ -23,16 +23,16 @@ from typing import Any, Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from myosuite_mjx_tpu.engine import data as data_mod
 from myosuite_mjx_tpu.engine import forward as forward_mod
 from myosuite_mjx_tpu.engine import model as model_mod
 from myosuite_mjx_tpu.engine.data import Data
 from myosuite_mjx_tpu.engine.model import DynType, JointType, TrnType
+from myosuite_mjx_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class EnvState:
   """Complete env state: physics Data + episode bookkeeping + task aux."""
   data: Data
@@ -338,11 +338,11 @@ class MyoEnv:
   _SUBSTEP_CARRY = ("qpos", "qvel", "act", "time", "qacc", "qacc_warmstart")
 
   def step(self, state: EnvState, action: jax.Array) -> EnvState:
-    # Pin f32 matmuls regardless of how the caller jits: TPU's default
-    # bfloat16 matmul precision visibly corrupts closed-loop behavior
-    # (measured: a solved reference policy drops 614 -> 298 return on
-    # myoFingerPoseFixed when stepped without this pin). BatchedEnv /
-    # Physics / bench already pin; this covers direct jit(vmap(env.step)).
+    # Pin f32 matmuls regardless of how the caller jits: on the GPU f32
+    # matmuls default to TF32 (~3 decimal digits), too coarse for the
+    # Newton and implicit-damping solves and for closed-loop policies that
+    # ride a solved threshold. BatchedEnv / Physics / bench already pin;
+    # this covers direct jit(vmap(env.step)).
     with jax.default_matmul_precision("highest"):
       return self._step_impl(state, action)
 

@@ -11,7 +11,7 @@ switching from the reference gets the same interaction model here:
     obs, info = env.reset()
     obs, reward, terminated, truncated, info = env.step(env.action_space.sample())
 
-TPU-native shape: the adapter is a thin host loop around the pure jitted
+Shape: the adapter is a thin host loop around the pure jitted
 ``reset``/``step`` (compiled once, cached); all physics stays on device,
 only obs/reward scalars cross to numpy. ``num_envs > 1`` exposes the
 vectorized surface (SB3 VecEnv / gymnasium VectorEnv shape: batched obs

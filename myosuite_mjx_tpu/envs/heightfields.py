@@ -4,7 +4,7 @@ Capability parity with the reference HeightField stack
 (/root/reference/myosuite/envs/heightfields.py:78-453): ChaseTag-style
 quadrant fields (FLAT / HILLY / ROUGH / RELIEF) and Track-style per-segment
 difficulty schedules, plus the raycast-free local heightmap observation.
-Redesigned TPU-first: generation is pure JAX of a PRNG key, producing an
+Redesigned for batching: generation is pure JAX of a PRNG key, producing an
 ``hfield_data`` overlay consumed by the collision stage — terrain
 randomizes per episode entirely on device (the reference writes
 sim.model.hfield_data on the host each reset).

@@ -291,6 +291,7 @@ from myosuite_mjx_tpu.envs.reorient_sar import (  # noqa: E402
     Geometries8Env, Geometries100Env, InDistributionEnv,
     OutOfDistributionEnv)
 from myosuite_mjx_tpu.models.assets import sar_scene_xml  # noqa: E402
+import functools as _functools  # noqa: E402
 
 for _id, _cls, _condim in [
     ("myoHandReorient8-v0", Geometries8Env, 4),
@@ -301,7 +302,7 @@ for _id, _cls, _condim in [
   register(
       _id, _cls, max_episode_steps=50,
       kwargs=dict(
-          model_path=sar_scene_xml(condim=_condim),
+          model_path=_functools.partial(sar_scene_xml, condim=_condim),
           normalize_act=True,
           frame_skip=5,
       ))
@@ -394,4 +395,4 @@ for _tid, _terrain, _variant in [
 # host-rendered rgb features via env.get_visuals / env.obs_with_visuals.
 register_env_variant(
     "myoFingerPoseFixed-v0", "myoFingerPoseFixedRGB-v0",
-    {"visual_keys": ["rgb:free:32x32:1d", "rgb:free:32x32:flax_cnn"]})
+    {"visual_keys": ["rgb:free:32x32:1d", "rgb:free:32x32:cnn"]})

@@ -156,7 +156,7 @@ _ramp = ((0.0,) * 5
 register(
     "myoChallengeOslRunFixed-v0", RunTrackEnv, max_episode_steps=1000,
     kwargs=dict(
-        model_path=osl_runtrack_xml(),
+        model_path=osl_runtrack_xml,
         normalize_act=True,
         reset_type="random",
         terrain="flat",
@@ -173,7 +173,7 @@ register(
 register(
     "myoChallengeOslRunRandom-v0", RunTrackEnv, max_episode_steps=60000,
     kwargs=dict(
-        model_path=osl_runtrack_xml(),
+        model_path=osl_runtrack_xml,
         normalize_act=True,
         reset_type="random",
         terrain="random",

@@ -13,7 +13,7 @@ import re
 
 import numpy as np
 
-from myosuite_mjx_tpu.envs.registry import ASSET_ROOT, register
+from myosuite_mjx_tpu.envs.registry import ASSET_ROOT, register, register_lazy
 from myosuite_mjx_tpu.envs.track import TrackEnv
 from myosuite_mjx_tpu.models import assets
 
@@ -33,10 +33,13 @@ OBJECTS = (
 )
 
 
-def _track_specs():
-  """(task name, object, motion file) triplets from the reference registry
-  source — data extraction for exact ID parity."""
+def _register_track_tasks():
+  """Register the (task name, object, motion clip) triplets listed in the
+  reference registry source — data extraction for exact ID parity. Runs on
+  first registry lookup; registers nothing without the asset tree."""
   src = os.path.join(ASSET_ROOT, "envs/myo/myodm/__init__.py")
+  if not os.path.exists(src):
+    return
   with open(src) as f:
     text = f.read()
   pattern = re.compile(
@@ -44,18 +47,16 @@ def _track_specs():
       r'robot="MyoHand",\s*'
       r'object="(?P<object>\w+)",\s*'
       r'motion="(?P<motion>[\w.]+)",', re.S)
-  out = []
   for match in pattern.finditer(text):
     clip = assets.myodm_clip(match["motion"])
     if os.path.exists(clip):
-      out.append((match["name"], match["object"], clip))
-  return out
+      register(
+          match["name"], TrackEnv, max_episode_steps=75,
+          kwargs=dict(object_name=match["object"], reference=clip,
+                      normalize_act=True))
 
 
-for _name, _obj, _clip in _track_specs():
-  register(
-      _name, TrackEnv, max_episode_steps=75,
-      kwargs=dict(object_name=_obj, reference=_clip, normalize_act=True))
+register_lazy(_register_track_tasks)
 
 
 def _register_object_tasks(object_name: str):

@@ -6,7 +6,7 @@ reorient_sar_v0.py:15-2581). Each episode the reference mutates the object
 geom's *type* (capsule/ellipsoid/cylinder/box), size, marker positions, the
 object mass (1.2 kg) and the target body orientation on the host model.
 
-TPU-native realization: geom type is static under XLA, so the scene carries
+Batched realization: geom type is static under XLA, so the scene carries
 all four candidate geoms on the Object body (models/assets.py:sar_scene_xml)
 and the per-episode ``Data.overlay`` sets the active geom's size from the
 task's geometry table while shrinking the inactive three to epsilon (points

@@ -6,12 +6,12 @@ Capability parity with the reference's visual-obs plumbing
 
     'rgb:<cam_name>:<H>x<W>:<encoder>'
 
-with encoders '1d' (flattened uint8), '2d' (HWC uint8), and 'flax_cnn'
-(a small Flax convnet producing a fixed-width embedding — the TPU-native
+with encoders '1d' (flattened uint8), '2d' (HWC uint8), and 'cnn'
+(a small JAX convnet producing a fixed-width embedding — the in-repo
 stand-in for the reference's torch r3m/rrl/vc1 encoders, which are
 downloadable pretrained weights and not reproducible offline).
 
-TPU-native split: pixels come from the HOST renderer (rendering is
+Split: pixels come from the HOST renderer (rendering is
 host-side by design, SURVEY.md §2.2), so visual obs are an *eval/dataset*
 surface — `VisualObs.get_visuals(qpos)` — rather than part of the jitted
 step. The encoder itself is pure JAX and can embed frames on-device in
@@ -37,35 +37,41 @@ def parse_visual_key(key: str):
   return cam, h, w, enc
 
 
-class FlaxCNNEncoder:
-  """Small convnet embedding [H, W, 3] uint8 -> [out_dim] float32."""
+class CNNEncoder:
+  """Small convnet embedding [H, W, 3] uint8 -> [out_dim] float32: three
+  3x3 stride-2 ReLU convs (16, 32, 32 features) and a dense head."""
+
+  _FEATURES = (16, 32, 32)
 
   def __init__(self, out_dim: int = 64, seed: int = 0):
     import jax
-    from flax import linen as nn
-
-    class _Net(nn.Module):
-      out_dim: int
-
-      @nn.compact
-      def __call__(self, x):
-        x = x.astype("float32") / 255.0
-        for feat in (16, 32, 32):
-          x = nn.relu(nn.Conv(feat, (3, 3), strides=(2, 2))(x))
-        x = x.reshape((x.shape[0], -1))
-        return nn.Dense(self.out_dim)(x)
-
-    self.net = _Net(out_dim)
     self.out_dim = out_dim
     self._params = None
     self._seed = seed
-    self._apply = jax.jit(lambda p, x: self.net.apply(p, x))
-    self._jax = jax
+    self._apply = jax.jit(self._forward)
+
+  @staticmethod
+  def _forward(params, x):
+    import jax
+    from myosuite_mjx_tpu.utils import nn
+    p = params["params"]
+    x = x.astype("float32") / 255.0
+    for i in range(len(CNNEncoder._FEATURES)):
+      x = jax.nn.relu(nn.conv(p[f"Conv_{i}"], x, strides=(2, 2)))
+    x = x.reshape((x.shape[0], -1))
+    return nn.dense(p["Dense_0"], x)
 
   def _ensure(self, sample):
     if self._params is None:
-      self._params = self.net.init(
-          self._jax.random.PRNGKey(self._seed), sample)
+      import jax
+      from myosuite_mjx_tpu.utils import nn
+      key = jax.random.PRNGKey(self._seed)
+      p, cin, (h, w) = {}, sample.shape[-1], sample.shape[1:3]
+      for i, feat in enumerate(self._FEATURES):
+        p[f"Conv_{i}"] = nn.conv_init(key, f"Conv_{i}", cin, feat)
+        cin, h, w = feat, -(-h // 2), -(-w // 2)
+      p["Dense_0"] = nn.dense_init(key, "Dense_0", cin * h * w, self.out_dim)
+      self._params = {"params": p}
 
   def __call__(self, frames: np.ndarray) -> np.ndarray:
     """frames [N, H, W, 3] -> [N, out_dim]."""
@@ -108,13 +114,13 @@ class VisualObs:
   def _encode(self, enc: str, frames: np.ndarray) -> np.ndarray:
     if enc in _ENCODERS:
       return _ENCODERS[enc](frames)
-    if enc == "flax_cnn":
+    if enc == "cnn":
       if self._cnn is None:
-        self._cnn = FlaxCNNEncoder()
+        self._cnn = CNNEncoder()
       return self._cnn(frames)
     raise ValueError(
         f"unknown encoder {enc!r}; available: "
-        f"{sorted(_ENCODERS) + ['flax_cnn']}")
+        f"{sorted(_ENCODERS) + ['cnn']}")
 
   def get_visuals(self, qpos, qvel=None) -> dict:
     """Render + encode every visual key at the given physics state.

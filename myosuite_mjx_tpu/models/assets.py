@@ -1,26 +1,42 @@
-"""Asset resolution: shadow tree + MyoDM object-scene processing.
+"""Asset resolution: the MyoSuite asset tree, a shadow tree of processed
+scenes, and MyoDM object-scene processing.
 
 The reference fetches its model assets (simhive) from git and instantiates
 MyoDM scenes by substituting OBJECT_NAME into a template XML next to the
 original (/root/reference/myosuite/envs/myo/myodm/myodm_v0.py:44-55). We
-keep the reference asset tree read-only and materialize processed scenes in
-a shadow tree under /tmp with symlinks so relative includes resolve.
-Override the asset root with $MYOSUITE_TPU_ASSETS.
+keep the asset tree read-only and materialize processed scenes in a shadow
+tree under the temp directory, with symlinks so relative includes resolve.
+Scenes are materialized only when an env is made, never at import.
 """
 from __future__ import annotations
 
 import os
+import tempfile
 
-# NB: duplicated from envs.registry (importing it would pull the whole env
-# package __init__, which itself imports this module for scene synthesis)
+# The MyoSuite checkout holding simhive/ and envs/myo/assets/.
 ASSET_ROOT = os.environ.get(
     "MYOSUITE_TPU_ASSETS", "/root/reference/myosuite")
 
 SHADOW_ROOT = os.environ.get(
-    "MYOSUITE_TPU_SHADOW", "/tmp/myosuite_tpu_assets")
+    "MYOSUITE_TPU_SHADOW",
+    os.path.join(tempfile.gettempdir(), "myosuite_tpu_assets"))
+
+
+def asset(relpath: str) -> str:
+  return os.path.join(ASSET_ROOT, relpath)
+
+
+def require_tree() -> None:
+  """Raise one clear error when the asset tree is absent."""
+  if not os.path.isdir(os.path.join(ASSET_ROOT, "simhive")):
+    raise FileNotFoundError(
+        f"MyoSuite asset tree not found at {ASSET_ROOT!r} (no simhive/ "
+        "there). Every registered Myo task needs it: set "
+        "MYOSUITE_TPU_ASSETS to a MyoSuite checkout.")
 
 
 def _ensure_shadow() -> str:
+  require_tree()
   hand_dir = os.path.join(SHADOW_ROOT, "envs/myo/assets/hand")
   os.makedirs(hand_dir, exist_ok=True)
   link = os.path.join(SHADOW_ROOT, "simhive")
@@ -141,6 +157,7 @@ def osl_runtrack_xml() -> str:
 def _shadow_tree(rel_dir: str) -> str:
   """Mirror one reference asset directory into the shadow tree (symlinked
   files, so relative includes keep resolving); returns the shadow dir."""
+  require_tree()
   dst_dir = os.path.join(SHADOW_ROOT, rel_dir)
   os.makedirs(dst_dir, exist_ok=True)
   link = os.path.join(SHADOW_ROOT, "simhive")
@@ -161,7 +178,7 @@ def sar_scene_xml(condim: int = 4) -> str:
 
   The reference mutates the object's geom *type* per episode
   (reorient_sar_v0.py:236-248 writes model.geom_type). Geom type is static
-  shape information under XLA, so the TPU scene instead carries all four
+  shape information under XLA, so the scene instead carries all four
   candidate geoms (capsule/ellipsoid/cylinder/box) on the Object body; the
   per-episode overlay sets the active geom's size from the task table and
   shrinks the inactive ones to epsilon (a point strictly inside the active

@@ -1,4 +1,4 @@
-"""Batched quaternion / rotation math for the TPU engine.
+"""Batched quaternion / rotation math for the engine.
 
 Conventions follow MuJoCo: quaternions are ``[w, x, y, z]``, rotation matrices
 are 3x3 row-major, euler angles are extrinsic XYZ by default (MuJoCo's

@@ -2,12 +2,13 @@
 
 The reference's only distributed machinery is brax's pmap data-parallelism
 (max_devices_per_host=8, /root/reference/myosuite/mjx/ppo_continuous_action
-.py:59) and SLURM job farming. TPU-native replacement (SURVEY.md §2.4):
+.py:59) and SLURM job farming. Replacement (SURVEY.md §2.4):
 
-* one ``Mesh`` over all chips/hosts with a single ``data`` axis — env batch
-  sharded across it, learner params replicated,
-* jit-with-shardings so XLA lowers gradient reductions to ICI all-reduces,
-* ``jax.distributed.initialize`` for multi-host pods (one program, all
+* one ``Mesh`` over all GPUs (and hosts) with a single ``data`` axis — env
+  batch sharded across it, learner params replicated,
+* jit-with-shardings so XLA lowers gradient reductions to all-reduces,
+  which it hands to NCCL over NVLink,
+* ``jax.distributed.initialize`` for several hosts (one program, all
   hosts).
 """
 from __future__ import annotations
@@ -34,9 +35,9 @@ def init_distributed(coordinator_address: str | None = None,
   Returns True when running (or now initialized) multi-process, False for
   plain single-host. Configuration comes from the arguments or the standard
   environment (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID,
-  or a TPU pod runtime that auto-configures). Errors are raised, not
-  swallowed: a mis-configured pod launch must fail loudly rather than train
-  on one host silently.
+  or a cluster runtime that auto-configures). Errors are raised, not
+  swallowed: a mis-configured multi-host launch must fail loudly rather
+  than train on one host silently.
   """
   import os
   if jax.process_count() > 1:
@@ -71,7 +72,7 @@ class ShardedPPO:
 
   Wraps train.ppo.PPO's pure train_step with explicit shardings; XLA inserts
   the psum for gradients (they contract the sharded batch axis into the
-  replicated params) over ICI.
+  replicated params) as an all-reduce across the cards.
   """
 
   def __init__(self, ppo, mesh: Mesh | None = None):
@@ -123,7 +124,7 @@ class ShardedNPG:
   every reduction in the update — the policy gradient, the KL
   Hessian-vector products inside CG, advantage statistics — contracts the
   sharded trajectory axis into replicated parameters, which XLA lowers to
-  ICI all-reduces. No shard-local minibatch bookkeeping is needed; the
+  all-reduces across the cards. No shard-local minibatch bookkeeping is needed; the
   value-function fit's gathers are over a [N*T, obs] batch of a tiny MLP.
   """
 

@@ -4,14 +4,25 @@ Capability parity with the reference's trainer-side checkpointing
 (SB3 CheckpointCallback/resume, agents/sb3_job_script.py:85-118; brax
 model.save_params) — here a single orbax checkpoint of the full PPO
 TrainState pytree (params + optimizer + env states + PRNG), which makes
-resume exact.
+resume exact. ``orbax`` is imported on the first save or restore, so
+training without checkpoints does not need it installed.
 """
 from __future__ import annotations
 
 import os
 
 import jax
-import orbax.checkpoint as ocp
+
+
+def _ocp():
+  try:
+    import orbax.checkpoint as ocp
+  except ImportError as e:
+    raise ImportError(
+        "checkpointing needs the orbax-checkpoint package "
+        "(pip install orbax-checkpoint); training without "
+        "--checkpoint-dir/--resume does not") from e
+  return ocp
 
 
 def _prune_empty(tree):
@@ -22,7 +33,7 @@ def _prune_empty(tree):
 
 def save(path: str, train_state) -> None:
   path = os.path.abspath(path)
-  ckptr = ocp.StandardCheckpointer()
+  ckptr = _ocp().StandardCheckpointer()
   ckptr.save(path, _prune_empty(train_state), force=True)
   ckptr.wait_until_finished()
 
@@ -39,6 +50,7 @@ def _partial_restore(ckptr, path, abstract, template):
   (Data-schema growth between rounds): leaves absent from the checkpoint
   keep their template value; missing 'params' leaves raise (that would
   silently reinitialize a layer)."""
+  ocp = _ocp()
   meta = ckptr.metadata(path)
   meta_tree = meta
   for attr in ("item_metadata", "tree"):
@@ -103,6 +115,7 @@ def restore(path: str, template):
   layer, so restores that fall back for anything under 'params' raise.
   """
   path = os.path.abspath(path)
+  ocp = _ocp()
   ckptr = ocp.StandardCheckpointer()
   abstract = jax.tree.map(
       ocp.utils.to_shape_dtype_struct, _prune_empty(template))

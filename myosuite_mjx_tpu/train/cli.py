@@ -6,7 +6,7 @@ generator, sb3_job_script.py:31-131 PPO/SAC job with checkpointing,
 hydra_sb3_launcher.py): select env + algorithm + hyperparameters from the
 command line, train fully on-device, checkpoint periodically, and resume.
 
-TPU-native shape: there are no subprocess vec-envs or per-env cluster
+Shape: there are no subprocess vec-envs or per-env cluster
 jobs — one jitted train step over a vmapped env batch (optionally sharded
 over a device mesh with --mesh), so "one job per env/seed" collapses to a
 loop here or one flag per launch.
@@ -67,12 +67,12 @@ def main(argv=None):
   # persistent compile cache: the jitted train step dominates cold-start
   # wall time (minutes at hand scale); repeated/resumed runs skip it
   from myosuite_mjx_tpu.utils import compile_cache
-  compile_cache.enable(
-      os.path.join(os.path.dirname(os.path.dirname(
-          os.path.dirname(os.path.abspath(__file__)))), ".jax_cache"))
+  compile_cache.enable()
 
   from myosuite_mjx_tpu import envs
-  from myosuite_mjx_tpu.train import checkpoint
+  checkpoint = None
+  if args.checkpoint_dir or args.resume:
+    from myosuite_mjx_tpu.train import checkpoint
 
   env = envs.make(args.env)
 
@@ -117,8 +117,8 @@ def main(argv=None):
     print(f"resumed from {args.resume} at iter {start_iter}")
 
   def _prec(fn):
-    # f32 matmuls for learner math too (env step pins its own; TPU default
-    # is bf16 pass precision — see envs/base.py MyoEnv.step)
+    # f32 matmuls for learner math too (env step pins its own; GPU f32
+    # matmuls default to TF32 — see envs/base.py MyoEnv.step)
     def wrapped(*a):
       with jax.default_matmul_precision("highest"):
         return fn(*a)

@@ -11,7 +11,7 @@ PPO is escaped by natural-gradient steps within ~20 iterations (~200k
 samples; logs/log.csv next to the pickles), which is why this trainer
 exists here as a first-class algorithm and not just PPO.
 
-TPU-native shape: everything — the vmapped trajectory rollout, GAE, the
+Shape: everything — the vmapped trajectory rollout, GAE, the
 conjugate-gradient solve of F^-1 g (Fisher-vector products as double
 reverse-mode Hessian-vector products of the sampled KL), the KL-scaled
 step, and the time-featured value-function fit — is one jitted
@@ -30,49 +30,53 @@ import jax.flatten_util
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
-from flax import struct
-
 from myosuite_mjx_tpu.envs.base import EnvState, MyoEnv
 from myosuite_mjx_tpu.train.ppo import RunningNorm, _gaussian_logp
+from myosuite_mjx_tpu.utils import nn, pytree
 
 
-class GaussianMLP(nn.Module):
+class GaussianMLP:
   """mjrl-style policy: tanh MLP mean + per-dim learnable log_std with a
   floor (mjrl/policies/gaussian_mlp.py semantics: min_log_std clamp)."""
-  act_dim: int
-  hidden: tuple = (32, 32)
-  init_log_std: float = -0.25
-  min_log_std: float = -1.0
 
-  @nn.compact
-  def __call__(self, obs):
-    x = obs
-    for h in self.hidden:
-      x = nn.tanh(nn.Dense(h)(x))
-    mean = nn.Dense(self.act_dim)(x)
-    log_std = self.param(
-        "log_std", nn.initializers.constant(self.init_log_std),
-        (self.act_dim,))
-    log_std = jnp.maximum(log_std, self.min_log_std)
-    return mean, log_std
+  def __init__(self, act_dim: int, hidden: tuple = (32, 32),
+               init_log_std: float = -0.25, min_log_std: float = -1.0):
+    self.act_dim = act_dim
+    self.hidden = tuple(hidden)
+    self.init_log_std = init_log_std
+    self.min_log_std = min_log_std
+
+  def init(self, key, obs):
+    sizes = (obs.shape[-1],) + self.hidden + (self.act_dim,)
+    return {"params": {
+        **nn.mlp_init(key, sizes),
+        "log_std": jnp.full((self.act_dim,), self.init_log_std, float)}}
+
+  def apply(self, params, obs):
+    p = params["params"]
+    mean = nn.mlp(p, obs, len(self.hidden) + 1, jnp.tanh)
+    return mean, jnp.maximum(p["log_std"], self.min_log_std)
 
 
-class ValueMLP(nn.Module):
+class ValueMLP:
   """Baseline with mjrl MLPBaseline's engineered time features
   (mjrl/baselines/mlp_baseline.py): obs, obs^2-style nonlinearity is left
   to the MLP, but the normalized-time polynomial [t, t^2, t^3] is
   appended explicitly — with MC returns and no horizon bootstrap, the
   baseline must be able to represent the remaining-time value ramp."""
-  hidden: tuple = (128, 128)
 
-  @nn.compact
-  def __call__(self, obs, tfrac):
+  def __init__(self, hidden: tuple = (128, 128)):
+    self.hidden = tuple(hidden)
+
+  def init(self, key, obs, tfrac):
+    sizes = (obs.shape[-1] + 3,) + self.hidden + (1,)
+    return {"params": nn.mlp_init(key, sizes)}
+
+  def apply(self, params, obs, tfrac):
     t = jnp.stack([tfrac, tfrac ** 2, tfrac ** 3], axis=-1)
     x = jnp.concatenate([obs, t], axis=-1)
-    for h in self.hidden:
-      x = nn.relu(nn.Dense(h)(x))
-    return nn.Dense(1)(x)[..., 0]
+    return nn.mlp(params["params"], x, len(self.hidden) + 1,
+                  jax.nn.relu)[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +98,7 @@ class NPGConfig:
   norm_clip: float = 10.0
 
 
-@struct.dataclass
+@pytree.dataclass
 class NPGState:
   params: Any
   vf_params: Any

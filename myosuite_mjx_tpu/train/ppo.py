@@ -8,7 +8,7 @@ the reference configs: MLP [256, 128] policy/value (hydra_myo_sb3_ppo_config
 
 Everything — rollout (lax.scan over the batched env), GAE, minibatch SGD —
 lives in one jitted train_step. Multi-chip: shard the env batch over a
-``data`` mesh axis (see parallel/mesh.py); gradients all-reduce over ICI
+``data`` mesh axis (see parallel/mesh.py); gradients all-reduce across cards
 automatically under jit-with-shardings.
 """
 from __future__ import annotations
@@ -22,39 +22,43 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
-from flax import struct
-
 from myosuite_mjx_tpu.envs.base import EnvState, MyoEnv
+from myosuite_mjx_tpu.utils import nn, pytree
 
 
-class ActorCritic(nn.Module):
+class ActorCritic:
   """Tanh-MLP actor-critic with state-independent log-std.
 
   init/min log-std follow the reference NPG job config that solves the
   hand-scale pose tasks (agents/baslines_NPG/.../job_config.yaml:
   init_log_std -0.25, min_log_std -1.0): the floor prevents the
   exploration collapse that stalls muscle-space policies.
-  """
-  act_dim: int
-  hidden: tuple = (256, 128)
-  init_log_std: float = -0.5
-  min_log_std: float = -jnp.inf
 
-  @nn.compact
-  def __call__(self, obs):
-    x = obs
-    for h in self.hidden:
-      x = nn.tanh(nn.Dense(h)(x))
-    mean = nn.Dense(self.act_dim)(x)
-    log_std = self.param(
-        "log_std", nn.initializers.constant(self.init_log_std),
-        (self.act_dim,))
-    log_std = jnp.maximum(log_std, self.min_log_std)
-    v = obs
-    for h in self.hidden:
-      v = nn.tanh(nn.Dense(h)(v))
-    value = nn.Dense(1)(v)[..., 0]
+  Parameter layout: actor ``Dense_0..Dense_L`` (L = len(hidden)), then
+  ``log_std``, then the value tower ``Dense_{L+1}..``.
+  """
+
+  def __init__(self, act_dim: int, hidden: tuple = (256, 128),
+               init_log_std: float = -0.5, min_log_std: float = -jnp.inf):
+    self.act_dim = act_dim
+    self.hidden = tuple(hidden)
+    self.init_log_std = init_log_std
+    self.min_log_std = min_log_std
+
+  def init(self, key, obs):
+    sizes = (obs.shape[-1],) + self.hidden
+    n = len(self.hidden) + 1
+    p = {**nn.mlp_init(key, sizes + (self.act_dim,)),
+         **nn.mlp_init(key, sizes + (1,), first=n),
+         "log_std": jnp.full((self.act_dim,), self.init_log_std, float)}
+    return {"params": p}
+
+  def apply(self, params, obs):
+    p = params["params"]
+    n = len(self.hidden) + 1
+    mean = nn.mlp(p, obs, n, jnp.tanh)
+    log_std = jnp.maximum(p["log_std"], self.min_log_std)
+    value = nn.mlp(p, obs, n, jnp.tanh, first=n)[..., 0]
     return mean, log_std, value
 
 
@@ -89,7 +93,7 @@ class PPOConfig:
   norm_clip: float = 10.0
 
 
-@struct.dataclass
+@pytree.dataclass
 class RunningNorm:
   """Welford-merged running mean/var (VecNormalize semantics)."""
   mean: jax.Array
@@ -119,7 +123,7 @@ class RunningNorm:
                     -clip, clip)
 
 
-@struct.dataclass
+@pytree.dataclass
 class TrainState:
   params: Any
   opt_state: Any
@@ -275,7 +279,7 @@ class PPO:
         value=flat(traj["value"]))
 
     # ---- minibatch updates (each minibatch spans all groups: every shard
-    # contributes its local slice, gradients all-reduce over ICI) ----
+    # contributes its local slice, gradients all-reduce across cards) ----
     def loss_fn(params, mb):
       mean, log_std, value = self.net.apply(params, mb["obs"])
       logp = _gaussian_logp(mean, log_std, mb["act"])

@@ -6,7 +6,7 @@ selected by config). Defaults mirror SB3's: twin Q critics, tanh-squashed
 Gaussian actor, polyak target updates (tau 0.005), automatic entropy
 tuning to -act_dim, lr 3e-4, batch 256.
 
-TPU-native shape: the replay buffer is a device-resident ring (dict of
+Shape: the replay buffer is a device-resident ring (dict of
 fixed arrays), collection is a lax.scan over the vmapped env, and one
 jitted train_step = collect num_envs transitions + `updates_per_step`
 gradient steps on uniform samples. No host round-trips inside training.
@@ -21,40 +21,56 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
-from flax import struct
-
 from myosuite_mjx_tpu.envs.base import EnvState, MyoEnv
+from myosuite_mjx_tpu.utils import nn, pytree
 
 _LOG_STD_MIN, _LOG_STD_MAX = -20.0, 2.0
 
 
-class Actor(nn.Module):
-  act_dim: int
-  hidden: tuple = (256, 256)
+class Actor:
+  """ReLU MLP with separate mean (``Dense_{L}``) and clipped log-std
+  (``Dense_{L+1}``) heads on the last hidden layer."""
 
-  @nn.compact
-  def __call__(self, obs):
-    x = obs
-    for h in self.hidden:
-      x = nn.relu(nn.Dense(h)(x))
-    mean = nn.Dense(self.act_dim)(x)
-    log_std = jnp.clip(nn.Dense(self.act_dim)(x),
+  def __init__(self, act_dim: int, hidden: tuple = (256, 256)):
+    self.act_dim = act_dim
+    self.hidden = tuple(hidden)
+
+  def init(self, key, obs):
+    n = len(self.hidden)
+    sizes = (obs.shape[-1],) + self.hidden
+    return {"params": {
+        **nn.mlp_init(key, sizes),
+        **nn.mlp_init(key, (sizes[-1], self.act_dim), first=n),
+        **nn.mlp_init(key, (sizes[-1], self.act_dim), first=n + 1)}}
+
+  def apply(self, params, obs):
+    p = params["params"]
+    n = len(self.hidden)
+    x = jax.nn.relu(nn.mlp(p, obs, n, jax.nn.relu))
+    mean = nn.dense(p[f"Dense_{n}"], x)
+    log_std = jnp.clip(nn.dense(p[f"Dense_{n + 1}"], x),
                        _LOG_STD_MIN, _LOG_STD_MAX)
     return mean, log_std
 
 
-class TwinQ(nn.Module):
-  hidden: tuple = (256, 256)
+class TwinQ:
+  """Two independent ReLU-MLP critics on [obs, act]."""
 
-  @nn.compact
-  def __call__(self, obs, act):
-    def q(x):
-      for h in self.hidden:
-        x = nn.relu(nn.Dense(h)(x))
-      return nn.Dense(1)(x)[..., 0]
+  def __init__(self, hidden: tuple = (256, 256)):
+    self.hidden = tuple(hidden)
+
+  def init(self, key, obs, act):
+    sizes = (obs.shape[-1] + act.shape[-1],) + self.hidden + (1,)
+    n = len(sizes) - 1
+    return {"params": {**nn.mlp_init(key, sizes),
+                       **nn.mlp_init(key, sizes, first=n)}}
+
+  def apply(self, params, obs, act):
+    p = params["params"]
+    n = len(self.hidden) + 1
     xin = jnp.concatenate([obs, act], axis=-1)
-    return q(xin), q(xin)
+    return (nn.mlp(p, xin, n, jax.nn.relu)[..., 0],
+            nn.mlp(p, xin, n, jax.nn.relu, first=n)[..., 0])
 
 
 def _sample_tanh(mean, log_std, key):
@@ -82,7 +98,7 @@ class SACConfig:
   hidden: tuple = (256, 256)
 
 
-@struct.dataclass
+@pytree.dataclass
 class SACState:
   actor_params: Any
   q_params: Any

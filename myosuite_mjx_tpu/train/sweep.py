@@ -3,7 +3,7 @@
 Capability twin of the reference's job-farm generators
 (/root/reference/myosuite/agents/train_myosuite.sh:1-50 builds an env-list
 x config sweep; hydra_sb3_launcher.py + submitit fan it out to a cluster).
-TPU-native shape: one process owns the chip, so the sweep is a sequential
+Shape: one process owns the GPU, so the sweep is a sequential
 loop of single-run trainings (each already vmap-batched over thousands of
 envs); each run gets its own artifact directory
 <out>/<env_id>_<algo>_s<seed>/ with metrics.jsonl, tensorboard events and

@@ -142,7 +142,7 @@ class Policy:
     self._clip = float(snap.get("norm_clip", 10.0))
 
   def act(self, obs: jax.Array, key=None) -> jax.Array:
-    with jax.default_matmul_precision("highest"):  # TPU bf16-default guard
+    with jax.default_matmul_precision("highest"):  # not TF32
       return self._act_impl(obs)
 
   def _act_impl(self, obs: jax.Array) -> jax.Array:

@@ -6,21 +6,21 @@ JAX's ``LRUCache.put`` writes cache entries with a bare
 later reader segfaults inside the XLA executable deserializer.  Two
 defenses here:
 
-1. ``enable(path)`` monkeypatches the write to go through a temp file in
+1. ``enable()`` monkeypatches the write to go through a temp file in
    the same directory followed by ``os.replace`` (atomic on POSIX), so a
    killed writer leaves only a stray ``*.tmp`` that no reader opens.
 2. ``sweep_partial(path)`` removes leftover ``*.tmp`` files and
    zero-length entries from crashes that predate the patch.
-3. Entries land in a per-host subdirectory keyed by CPU feature flags +
-   jax version: XLA:CPU persists AOT executables specialized to the
-   *compiling* machine's features, and loading one on a host with a
-   different feature set warns "could lead to execution errors such as
-   SIGILL" — observed as xdist worker crashes when a cache directory
-   outlives a machine migration. Different hosts now read different
-   subtrees instead of each other's machine code.
+3. Where ``JAX_COMPILATION_CACHE_DIR`` is set, the cache is exactly that
+   directory. Otherwise it is ``<checkout>/.jax_cache/<host tag>``, the tag
+   keyed by CPU feature flags + jax version: XLA:CPU persists AOT
+   executables specialized to the *compiling* machine's features, and
+   loading one on a host with a different feature set warns "could lead
+   to execution errors such as SIGILL". The path is fixed for a checkout
+   and host, because it is part of what a later run must find again.
 
 Use from any entry point that turns the cache on (tests/conftest.py,
-train CLI, bench).  The reference has no equivalent (its CI recompiles
+train CLI, bench, chip_smoke, tools/).  The reference has no equivalent (its CI recompiles
 from scratch each run, /root/reference/.github/workflows/test.yml:36-38).
 """
 from __future__ import annotations
@@ -116,12 +116,24 @@ def _host_tag() -> str:
   return "host-" + hashlib.sha1(raw.encode()).hexdigest()[:10]
 
 
-def enable(path: str) -> None:
-  """Turn on the persistent compile cache at ``path``, crash-safely."""
-  path = os.path.join(os.path.abspath(path), _host_tag())
+def cache_dir() -> str:
+  """``$JAX_COMPILATION_CACHE_DIR`` when set, else the checkout's own."""
+  env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+  if env:
+    return env
+  checkout = os.path.dirname(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))))
+  return os.path.join(checkout, ".jax_cache", _host_tag())
+
+
+def enable() -> str:
+  """Turn on the persistent compile cache at ``cache_dir()``,
+  crash-safely. Returns the directory."""
+  path = cache_dir()
   os.makedirs(path, exist_ok=True)
   _patch_atomic_put()
   sweep_partial(path)
   jax.config.update("jax_compilation_cache_dir", path)
   jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
   jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+  return path

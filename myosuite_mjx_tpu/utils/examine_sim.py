@@ -1,4 +1,4 @@
-"""examine_sim CLI: load a raw MJCF model and step the TPU engine on it.
+"""examine_sim CLI: load a raw MJCF model and step the JAX engine on it.
 
 Capability parity with the reference's examine_sim
 (/root/reference/myosuite/utils/examine_sim.py:21): quick interactive

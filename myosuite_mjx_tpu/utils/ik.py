@@ -6,7 +6,7 @@ positions such that a named site reaches a target position and/or
 orientation, with L2 regularization while the error is large, an update
 norm clamp, and a progress-based early halt.
 
-TPU-native shape: the whole solve is one ``lax.while_loop`` over pure
+Shape: the whole solve is one ``lax.while_loop`` over pure
 engine functions (kinematics -> site pose + point Jacobian -> damped LS
 step -> quaternion-aware position integration), so it jits, vmaps over
 batches of targets, and differentiates. There is no mutable Physics/mjData

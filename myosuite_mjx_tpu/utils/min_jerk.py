@@ -5,7 +5,7 @@ Capability parity with the reference planner
 with zero start/goal velocity and acceleration, scaled between start and
 goal joint vectors.
 
-TPU-native shape: returns a dict of stacked arrays (time [N], position
+Shape: returns a dict of stacked arrays (time [N], position
 [N, D], velocity, acceleration) instead of the reference's list of
 per-step dicts, so the whole trajectory is one device tensor usable under
 jit/vmap (e.g. as a reference for tracking rewards). ``as_waypoint_list``

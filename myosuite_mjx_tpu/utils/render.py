@@ -1,7 +1,7 @@
 """Host-side debug rendering of logged qpos frames.
 
 The CPU MuJoCo twin renders offscreen via EGL (rendering stays host-side
-by design, SURVEY.md §2.2 — the TPU path never produces pixels). Falls
+by design, SURVEY.md §2.2 — the device path never produces pixels). Falls
 back from mp4 to gif when no ffmpeg backend is available in the image.
 
 ``OffscreenRenderer`` is the capability twin of the reference's renderer
@@ -13,12 +13,22 @@ from __future__ import annotations
 import os
 
 
+def _mujoco():
+  """Import ``mujoco`` for rendering, defaulting to headless EGL unless the
+  user chose a GL backend or has a display for the glfw viewer. MuJoCo picks
+  its GL backend when it is first imported, so a process that renders and
+  also compiles MJCF first should set ``MUJOCO_GL`` before either."""
+  if "MUJOCO_GL" not in os.environ and "DISPLAY" not in os.environ:
+    os.environ["MUJOCO_GL"] = "egl"
+  import mujoco
+  return mujoco
+
+
 class OffscreenRenderer:
   """Offscreen rgb / depth / segmentation frames with camera settings."""
 
   def __init__(self, model_path: str, height: int = 240, width: int = 320):
-    os.environ.setdefault("MUJOCO_GL", "egl")
-    import mujoco
+    mujoco = _mujoco()
     self._mujoco = mujoco
     self.model = mujoco.MjModel.from_xml_path(model_path)
     self.data = mujoco.MjData(self.model)
@@ -100,9 +110,8 @@ def render_qpos_frames(model_path: str, qpos_frames, out_path: str,
                        camera=None, fps: int = 25,
                        frame_size=(320, 240)) -> str:
   """Render a sequence of qpos vectors; returns the path actually written."""
-  os.environ.setdefault("MUJOCO_GL", "egl")  # headless GL
   import imageio
-  import mujoco
+  mujoco = _mujoco()
 
   mj = mujoco.MjModel.from_xml_path(model_path)
   renderer = mujoco.Renderer(mj, height=frame_size[1], width=frame_size[0])

@@ -1,6 +1,6 @@
 """float32 production-path robustness (VERDICT r1 weak #6).
 
-The whole test suite runs in x64 for oracle parity; the TPU production path
+The whole test suite runs in x64 for oracle parity; the production path
 is float32. This suite steps the contact-rich flagship scenes in f32 for a
 long horizon asserting no NaN and bounded drift vs the f64 trajectory —
 the fragility called out at engine/api.py (f32 needs matmul-precision

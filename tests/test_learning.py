@@ -4,8 +4,7 @@ The reference ships trained baselines and asserts its agents learn
 (/root/reference/myosuite/agents/sb3_job_script.py:49-131); the equivalent
 machine check here is training myoFingerPoseFixed-v0 PPO from scratch and
 asserting the deterministic-eval solved fraction reaches 0.8 (the judge's
-round-2 probe measured 0.83 in ~4 min CPU). Checked-in artifacts from a
-TPU run of the same config live under train_artifacts/.
+round-2 probe measured 0.83 on the CPU).
 
 Run explicitly: pytest -m slow tests/test_learning.py
 """

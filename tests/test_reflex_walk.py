@@ -4,7 +4,7 @@ The reference ships a reflex controller whose published gains predate the
 current myolegs.xml and collapse in ~0.3 s — reproducibly with the
 reference's own controller (agents/reflex.py docstring). The checked-in
 ``train_artifacts/reflex_gains.npz`` is re-tuned against the shipped
-model by TPU CEM (tools/tune_reflex.py); this test replays it and floors
+model by CEM (tools/tune_reflex.py); this test replays it and floors
 survival + forward progress ~30% under the tuned result, so a physics or
 controller regression that breaks the gait fails loudly while seed/
 platform noise does not.
@@ -72,10 +72,10 @@ def test_tuned_gains_beat_nominal_slice():
 
 @pytest.mark.slow
 def test_tuned_gains_full_horizon():
-  """Platform-honest floors: the TPU-tuned gains measure 2.62 s / 4.5 m
-  on the chip but 1.75 s / 3.05 m on CPU XLA (chaotic gait, different
-  reduction order), so the floor sits under the CPU figure — still 3-4x
-  the nominal-gain collapse."""
+  """Floors under the CPU figure: the tuned gains walk 1.75 s / 3.05 m
+  on CPU XLA (a chaotic gait: other backends reduce in another order and
+  land elsewhere), so the floor sits under it — still 3-4x the
+  nominal-gain collapse."""
   params = np.load(GAINS)["params"]
   dist, t_alive = _rollout(params, 1000)
   assert t_alive >= 130, (dist, t_alive)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from myosuite_mjx_tpu.envs.visual import (
-    FlaxCNNEncoder, parse_visual_key, register_encoder)
+    CNNEncoder, parse_visual_key, register_encoder)
 
 
 def test_parse_visual_key_grammar():
@@ -26,7 +26,7 @@ def test_encoders_shapes():
   from myosuite_mjx_tpu.envs.visual import _ENCODERS
   assert _ENCODERS["1d"](frames).shape == (3, 16 * 16 * 3)
   assert _ENCODERS["2d"](frames).shape == (3, 16, 16, 3)
-  enc = FlaxCNNEncoder(out_dim=32)
+  enc = CNNEncoder(out_dim=32)
   out = enc(frames)
   assert out.shape == (3, 32)
   assert np.isfinite(out).all()
@@ -49,10 +49,10 @@ def test_get_visuals_end_to_end():
   import jax
   env = envs.make("myoFingerPoseFixed-v0")
   st = env.reset(jax.random.PRNGKey(0))
-  vo = VisualObs(env, ["rgb:free:32x32:1d", "rgb:free:32x32:flax_cnn"])
+  vo = VisualObs(env, ["rgb:free:32x32:1d", "rgb:free:32x32:cnn"])
   vdict = vo.get_visuals(np.asarray(st.data.qpos))
   assert vdict["rgb:free:32x32:1d"].shape == (32 * 32 * 3,)
-  assert vdict["rgb:free:32x32:flax_cnn"].shape == (64,)
+  assert vdict["rgb:free:32x32:cnn"].shape == (64,)
   # a different pose produces different pixels
   st2 = env.reset(jax.random.PRNGKey(0))
   import jax.numpy as jnp
@@ -73,16 +73,16 @@ def test_visual_keys_in_env_obs():
   import jax
   env = envs.make("myoFingerPoseFixedRGB-v0")
   assert env.visual_keys == [
-      "rgb:free:32x32:1d", "rgb:free:32x32:flax_cnn"]
+      "rgb:free:32x32:1d", "rgb:free:32x32:cnn"]
   st = env.reset(jax.random.PRNGKey(0))
   vdict = env.get_visuals(st)
   assert vdict["rgb:free:32x32:1d"].shape == (32 * 32 * 3,)
-  assert vdict["rgb:free:32x32:flax_cnn"].shape == (64,)
+  assert vdict["rgb:free:32x32:cnn"].shape == (64,)
   full = env.obs_with_visuals(st)
   # proprio prefix is the jitted obs, visual features appended in key order
   n = st.obs.shape[0]
   np.testing.assert_allclose(full[:n], np.asarray(st.obs), rtol=1e-6)
   assert full.shape == (n + 32 * 32 * 3 + 64,)
-  # encoder output present and finite (flax_cnn tail)
+  # encoder output present and finite (cnn tail)
   assert np.isfinite(full).all()
   assert np.abs(full[n + 32 * 32 * 3:]).sum() > 0

@@ -36,8 +36,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
   from myosuite_mjx_tpu.utils import compile_cache
-  compile_cache.enable(os.path.join(os.path.dirname(os.path.dirname(
-      os.path.abspath(__file__))), ".jax_cache"))
+  compile_cache.enable()
 
   import jax
   import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Population gain-tuning for the reflex walking controller (myoLeg).
 
-This is the TPU use case the reflex port was built for (agents/reflex.py
+This is the batched use case the reflex port was built for (agents/reflex.py
 docstring): the reference ships a gain set tuned for a 2022 myoLeg
 (agents/baseline_Reflex tutorial baseline_params.txt) that collapses on
 the current myolegs.xml — reproducibly with the reference's own
@@ -43,8 +43,7 @@ def main():
   args = ap.parse_args()
 
   from myosuite_mjx_tpu.utils import compile_cache
-  compile_cache.enable(os.path.join(os.path.dirname(os.path.dirname(
-      os.path.abspath(__file__))), ".jax_cache"))
+  compile_cache.enable()
   import jax
   import jax.numpy as jnp
   from myosuite_mjx_tpu.agents import reflex
